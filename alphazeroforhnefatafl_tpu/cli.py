@@ -53,7 +53,7 @@ def cmd_play(args):
         mcts_side = Side.ATTACKER if args.ai == "attacker" else Side.DEFENDER
         ai = _make_ai(args)
 
-    print(f"alphazeroforhnefatafl-tpu: {args.preset}")
+    print(f"alphazeroforhnefatafl: {args.preset}")
     while True:
         print("Board:")
         print(fen.board_to_display_str(game.state.board))
@@ -207,7 +207,7 @@ def cmd_bench(args):
     _maybe_cpu(args)
     import bench
 
-    bench.main()
+    return bench.main()
 
 
 def cmd_ladder(args):
@@ -233,7 +233,7 @@ def cmd_ladder(args):
         net, jax.random.PRNGKey(0), env.num_observation_planes, opt
     )
     mgr = CheckpointManager(args.ckpt)
-    steps = sorted(mgr.mgr.all_steps())
+    steps = mgr.all_iterations()
     named = [("init", base.params)]
     for s in steps:
         _, ts, _, _ = mgr.restore(base, None, iteration=s)
@@ -304,6 +304,9 @@ def main(argv=None):
     p.set_defaults(fn=cmd_ladder)
 
     args = parser.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,8 +1,9 @@
 """Fixed-shape action space for tafl moves.
 
 The reference represents a move as ``Play { from: Tile, movement: AxisOffset }``
-(``game/play.rs:23-27``) — source tile plus axis and signed displacement. On
-TPU we need a *fixed-size integer action space*, so a move is encoded as
+(``game/play.rs:23-27``) — source tile plus axis and signed displacement. A
+batched policy head needs a *fixed-size integer action space*, so a move is
+encoded as
 
     action = from_flat * (4 * (N - 1)) + direction * (N - 1) + (distance - 1)
 

@@ -1,6 +1,6 @@
 """Vectorized pure-JAX tafl environment.
 
-TPU-native re-design of the reference's Rust game engine
+Array re-design of the reference's Rust game engine
 (``/root/reference/game/game/logic.rs``): instead of per-tile iterators,
 pointer flood fills and early-exit scans, every rule is a fixed-shape array
 program — jit-able, vmap-able over thousands of lockstep games and shardable
@@ -38,9 +38,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from .fen import board_from_fen
+from ..utils.pytree import pytree_dataclass
 from .rules import (
     CELL_ATT,
     CELL_DEF,
@@ -79,31 +79,26 @@ R_DRAW_NO_PLAYS = 17
 class KernelDispatch(NamedTuple):
     """How a game-batched move program should run under a multi-device mesh.
 
-    The fused pallas kernels (``ops/step_kernel.py``, ``ops/legal_mask.py``)
-    have no GSPMD partition rule, and GSPMD also refuses to batch-partition
-    the search's ``top_k``/``scatter-add`` families: under a >1-device dp
-    mesh, plain ``jit`` all-gathers the game batch around all of them
-    (measured on the 8-device CPU mesh: seven all-gathers per move, some
-    ``f32[B, A]``-sized). Production move functions (self-play actor, arena)
-    therefore run their WHOLE body — root mask, search waves, env steps,
-    policy extraction — inside one ``shard_map`` over the dp axis when a
-    dispatch is active, so every device advances its own games with zero
-    cross-device traffic (pure DP of games, SURVEY.md §5).
-
-    ``interpret=True`` forces interpreter-mode pallas kernels inside the
-    shards so the TPU program *structure* is testable on the CPU mesh.
+    GSPMD refuses to batch-partition the search's ``top_k``/``scatter-add``
+    families: under a >1-device dp mesh, plain ``jit`` all-gathers the game
+    batch around them (measured on the 8-device CPU mesh: seven all-gathers
+    per move, some ``f32[B, A]``-sized). Production move functions
+    (self-play actor, arena) therefore run their WHOLE body — root mask,
+    search waves, env steps, policy extraction — inside one ``shard_map``
+    over the dp axis when a dispatch is active, so every device advances its
+    own games with zero cross-device traffic (pure DP of games, SURVEY.md
+    §5).
     """
 
     mesh: Any
     axis: str = "dp"
-    interpret: bool = False  # interpreter-mode kernels (CPU mesh tests)
 
 
 def auto_dispatch(sharding) -> "KernelDispatch | None":
     """The production dispatch rule for a game batch with ``sharding``:
-    whole-move ``shard_map`` on a >1-device mesh (TPU: fused kernels per
-    shard; CPU: vmap path per shard); ``None`` on a single device, where the
-    single-program path stays byte-stable for the compile cache."""
+    whole-move ``shard_map`` on a >1-device mesh; ``None`` on a single
+    device, where the single-program path stays byte-stable for the compile
+    cache."""
     if sharding is None:
         return None
     mesh = sharding.mesh
@@ -122,7 +117,8 @@ def auto_dispatch(sharding) -> "KernelDispatch | None":
     return KernelDispatch(mesh=mesh, axis=axis)
 
 
-class EnvState(struct.PyTreeNode):
+@pytree_dataclass
+class EnvState:
     """Per-game mutable state (``game/game/state.rs:119-133``), as a pytree.
 
     The repetition tracker (``state.rs:41-114``) is carried as a 4-slot ring
@@ -142,7 +138,8 @@ class EnvState(struct.PyTreeNode):
     reason: jax.Array  # int32: WinReason code, R_DRAW_*, or R_NONE
 
 
-class StepInfo(struct.PyTreeNode):
+@pytree_dataclass
+class StepInfo:
     """Effects of a step (``PlayEffects``, ``game/game/mod.rs:56-61``)."""
 
     captures: jax.Array  # bool[N, N] captured tiles
@@ -265,7 +262,7 @@ class TaflEnv:
 
     # Value identity: two envs with the same ruleset and starting FEN are
     # the same compiled program. This keys every lru_cache on the env
-    # (ops/step_kernel._make_step_fn, arena move-fn cache) by VALUE, so
+    # (the arena move-fn cache) by VALUE, so
     # repeated make_env(preset) calls in one process reuse traced/compiled
     # functions instead of re-tracing per instance.
     def __eq__(self, other):
@@ -373,54 +370,11 @@ class TaflEnv:
         m = self.legal_mask_for_side(state.board, state.side_to_play)
         return m & ~state.terminated
 
-    def legal_mask_many(self, states: EnvState, *, interpret: bool = False) -> jax.Array:
-        """Batched root legal mask with backend dispatch: the fused pallas
-        ray-scan kernel (ops/legal_mask.py) on TPU, ``vmap(legal_mask)``
-        elsewhere. Used by the self-play/arena root-mask sites; step-time
-        masks come fused out of the step kernel instead (``info.legal_mask``).
-
-        ``interpret=True`` forces the kernel path in interpreter mode on any
-        backend. Under a >1-device dp mesh the production callers run their
-        whole move function inside ``shard_map`` (see :class:`KernelDispatch`)
-        so this executes per-shard; :meth:`legal_mask_sharded` is the
-        standalone sharded variant.
-        """
-        if interpret or jax.devices()[0].platform == "tpu":
-            from ..ops.legal_mask import batched_legal_mask
-
-            m = batched_legal_mask(
-                self, states.board, states.side_to_play, interpret=interpret
-            )
-            return m & ~states.terminated[:, None]
+    def legal_mask_many(self, states: EnvState) -> jax.Array:
+        """Batched root legal mask, ``vmap(legal_mask)``. Used by the
+        self-play/arena root-mask sites; step-time masks come out of the step
+        itself (``info.legal_mask``)."""
         return jax.vmap(self.legal_mask)(states)
-
-    def legal_mask_sharded(
-        self,
-        mesh,
-        states: EnvState,
-        *,
-        axis: str = "dp",
-        interpret: bool = False,
-    ) -> jax.Array:
-        """Batched legal mask over a dp-sharded game batch via ``shard_map``
-        (each device ray-scans its own shard; zero cross-device traffic)."""
-        from jax.sharding import PartitionSpec as P
-
-        def local(st):
-            from ..ops.legal_mask import batched_legal_mask
-
-            m = batched_legal_mask(
-                self, st.board, st.side_to_play, interpret=interpret
-            )
-            return m & ~st.terminated[:, None]
-
-        return jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(axis),),
-            out_specs=P(axis),
-            check_vma=False,
-        )(states)
 
     # ------------------------------------------------------------------
     # Hostility boards (logic.rs:76-114)
@@ -478,8 +432,8 @@ class TaflEnv:
         a closing corner), so the scan reduces to finding the first
         non-extender tile in each direction and classifying it. All four edge
         lanes are scanned together and the active one selected with one-hot
-        compares: dynamic-index gathers are pathologically slow on TPU, so
-        4x the (trivial) lane arithmetic is the cheaper trade.
+        compares, which keeps the step free of data-dependent gathers at the
+        cost of 4x the (trivial) lane arithmetic.
         """
         sw = self.rules.shieldwall
         n = self.n
@@ -908,11 +862,7 @@ class TaflEnv:
     def _apply_play(
         self, state: EnvState, action: jax.Array, *, validate: bool
     ) -> Dict[str, jax.Array]:
-        """Array phase of a step: decode, move, capture (no outcome logic).
-
-        Returns exactly the quantities the fused pallas step kernel also
-        produces, so :meth:`_finish_step` is shared by both paths.
-        """
+        """Array phase of a step: decode, move, capture (no outcome logic)."""
         n = self.n
         board = state.board
         side = state.side_to_play
@@ -958,17 +908,13 @@ class TaflEnv:
             board3=board3,
             cap=cap,
             king_captured=cap[king_r, king_c],
-            next_mask=None,
-            o_enclosed=None,
-            o_exit_fort=None,
         )
 
     def _finish_step(
         self, state: EnvState, action: jax.Array, ap: Dict[str, jax.Array]
     ) -> Tuple[EnvState, StepInfo]:
         """Outcome phase of a step: repetition, flood-fill outcomes, priority
-        select, freeze, info — shared by the per-game JAX path and the fused
-        pallas batch path."""
+        select, freeze, info."""
         rules = self.rules
         n = self.n
         side = state.side_to_play
@@ -981,25 +927,6 @@ class TaflEnv:
         captured_any = jnp.any(cap)
         n_captures = jnp.sum(cap).astype(jnp.int32)
         king_captured = ap["king_captured"]
-        fin = ap.get("fin")
-        if fin is not None:
-            # The fused kernel already ran the repetition tracker and the
-            # outcome priority select in-kernel; only the freeze/info
-            # epilogue below remains.
-            recent = fin["recent_plays"].astype(jnp.int32)
-            rep_first_i = fin["rep_first_i"]
-            reps = fin["reps"].astype(jnp.int32)
-            mid_pair = fin["mid_pair"]
-            psc = fin["plays_since_capture"]
-            n_captures = fin["n_captures"].astype(jnp.int32)
-            result = fin["result"]
-            reason = fin["reason"]
-            terminated = fin["terminated"]
-            next_mask = ap["next_mask"]
-            return self._epilogue(
-                state, valid, board3, cap, n_captures, recent, rep_first_i,
-                reps, mid_pair, psc, result, reason, terminated, next_mask,
-            )
 
         # --- repetition tracking (state.rs:92-113) ---
         rec = side + 2 * captured_any.astype(jnp.int32) + 4 * action
@@ -1019,7 +946,6 @@ class TaflEnv:
         psc = state.plays_since_capture + (~captured_any).astype(jnp.int32)
 
         # --- outcome (logic.rs:702-771), evaluated on board3 ---
-        # Flood-fill outcomes come precomputed from the fused kernel path.
         n_att = jnp.sum(board3 == CELL_ATT)
         n_def = jnp.sum((board3 == CELL_DEF) | (board3 == CELL_KING))
         other_count = jnp.where(side == int(Side.ATTACKER), n_def, n_att)
@@ -1028,16 +954,13 @@ class TaflEnv:
         is_attacker = side == int(Side.ATTACKER)
         o_king_captured = is_attacker & king_captured
         if rules.enclosure_win is not None:
-            if ap["o_enclosed"] is not None:
-                o_enclosed = is_attacker & ap["o_enclosed"]
-            else:
-                o_enclosed = is_attacker & self._surround_win(
-                    board3,
-                    self._hostile_boards(board3),
-                    king_r,
-                    king_c,
-                    live=is_attacker,
-                )
+            o_enclosed = is_attacker & self._surround_win(
+                board3,
+                self._hostile_boards(board3),
+                king_r,
+                king_c,
+                live=is_attacker,
+            )
         else:
             o_enclosed = jnp.asarray(False)
 
@@ -1047,16 +970,13 @@ class TaflEnv:
         escape_tile = to_at_edge if rules.edge_escape else to_at_corner
         o_king_escaped = is_defender & (moving_cell == CELL_KING) & escape_tile
         if rules.exit_fort:
-            if ap["o_exit_fort"] is not None:
-                o_exit_fort = is_defender & ap["o_exit_fort"]
-            else:
-                o_exit_fort = is_defender & self._exit_fort(
-                    board3,
-                    self._hostile_boards(board3),
-                    king_r,
-                    king_c,
-                    live=is_defender,
-                )
+            o_exit_fort = is_defender & self._exit_fort(
+                board3,
+                self._hostile_boards(board3),
+                king_r,
+                king_c,
+                live=is_defender,
+            )
         else:
             o_exit_fort = jnp.asarray(False)
 
@@ -1069,10 +989,7 @@ class TaflEnv:
 
         # Opponent legal moves on the post-capture board double as the
         # NoPlays check (logic.rs:760-768) and the next root policy mask.
-        # The fused kernel path supplies this precomputed.
-        next_mask = ap["next_mask"]
-        if next_mask is None:
-            next_mask = self.legal_mask_for_side(board3, 1 - side)
+        next_mask = self.legal_mask_for_side(board3, 1 - side)
         o_no_plays = ~jnp.any(next_mask)
 
         # Priority select (the reference's early returns, logic.rs:709-768).
@@ -1108,19 +1025,7 @@ class TaflEnv:
             reason = jnp.where(take, reason_i, reason)
             done = done | cond_i
 
-        return self._epilogue(
-            state, valid, board3, cap, n_captures, recent, rep_first_i, reps,
-            mid_pair, psc, result, reason, done, next_mask,
-        )
-
-    def _epilogue(
-        self, state, valid, board3, cap, n_captures, recent, rep_first_i,
-        reps, mid_pair, psc, result, reason, terminated, next_mask,
-    ) -> Tuple[EnvState, StepInfo]:
-        """Freeze + info construction shared by the fused-kernel path (which
-        computes everything else in-kernel) and the per-game JAX path."""
-        side = state.side_to_play
-        other = 1 - side
+        # --- freeze + info ---
         reward_mover = jnp.where(
             result == side, 1.0, jnp.where(result == other, -1.0, 0.0)
         ).astype(jnp.float32)
@@ -1134,7 +1039,7 @@ class TaflEnv:
             mid_pair=mid_pair,
             plays_since_capture=psc,
             turn=state.turn + 1,
-            terminated=terminated,
+            terminated=done,
             result=result,
             reason=reason,
         )
@@ -1145,118 +1050,32 @@ class TaflEnv:
         info = StepInfo(
             captures=cap & valid,
             n_captures=jnp.where(valid, n_captures, 0),
-            terminated=terminated & valid,
+            terminated=done & valid,
             result=jnp.where(valid, result, state.result),
             reason=jnp.where(valid, reason, state.reason),
             reward_mover=jnp.where(valid, reward_mover, 0.0),
-            legal_mask=next_mask & ~terminated & valid,
+            legal_mask=next_mask & ~done & valid,
             invalid=~valid,
         )
         return new_state, info
 
-    def step_batch(
-        self,
-        states: EnvState,
-        actions: jax.Array,
-        *,
-        validate: bool = False,
-        interpret: bool = False,
-    ) -> Tuple[EnvState, StepInfo]:
-        """Batched step through the fused pallas kernel (ops/step_kernel.py).
-
-        Semantically identical to ``vmap(step)`` — the array phase (move,
-        captures, shieldwall, next legal mask) runs as one VMEM-resident
-        kernel program per 128-game block, and the shared
-        :meth:`_finish_step` applies outcomes. ``interpret=True`` runs the
-        kernel in interpreter mode (CPU testing).
-        """
-        from ..ops.step_kernel import step_arrays
-
-        actions = jnp.asarray(actions, jnp.int32)
-        ap = step_arrays(
-            self,
-            states.board,
-            states.side_to_play,
-            actions,
-            states.recent_plays,
-            states.rep_first_i,
-            states.reps,
-            states.mid_pair,
-            states.plays_since_capture,
-            interpret=interpret,
-        )
-        valid = ap["valid"] & ~states.terminated
-        if validate:
-            from ..ops.legal_mask import batched_legal_mask
-
-            pre = batched_legal_mask(
-                self, states.board, states.side_to_play, interpret=interpret
-            )
-            valid = valid & jnp.take_along_axis(pre, actions[:, None], axis=1)[:, 0]
-        ap = dict(ap, valid=valid)
-        return jax.vmap(self._finish_step)(states, actions, ap)
-
     def step_many(
-        self,
-        states: EnvState,
-        actions: jax.Array,
-        *,
-        validate: bool = False,
-        interpret: bool = False,
+        self, states: EnvState, actions: jax.Array, *, validate: bool = False
     ) -> Tuple[EnvState, StepInfo]:
-        """Batched step with automatic backend dispatch: the fused pallas
-        kernel on TPU, ``vmap(step)`` elsewhere (CPU tests, interpret-free).
-
-        ``interpret=True`` forces the kernel path in interpreter mode on any
-        backend (CPU-mesh tests of the TPU program structure).
-
-        The kernel path assumes the batch is addressable by one device
-        program; under a >1-device dp mesh the production callers run their
-        whole move function inside ``shard_map`` (see :class:`KernelDispatch`)
-        so this executes per-shard.
-        """
-        if interpret or jax.devices()[0].platform == "tpu":
-            return self.step_batch(
-                states, actions, validate=validate, interpret=interpret
-            )
+        """Batched step, ``vmap(step)``. Under a >1-device dp mesh the
+        production callers run their whole move function inside
+        ``shard_map`` (see :class:`KernelDispatch`), so this executes
+        per-shard."""
         return jax.vmap(lambda s, a: self.step(s, a, validate=validate))(
             states, actions
         )
-
-    def step_sharded(
-        self,
-        mesh,
-        states: EnvState,
-        actions: jax.Array,
-        *,
-        axis: str = "dp",
-        validate: bool = False,
-        interpret: bool = False,
-    ) -> Tuple[EnvState, StepInfo]:
-        """Batched step over a dp-sharded game batch: ``shard_map`` runs the
-        fused pallas kernel independently on each device's shard (pure DP of
-        games — zero cross-device traffic), so multi-chip meshes keep the
-        kernel path instead of falling back to ``vmap(step)``. Differentially
-        tested against ``vmap(step)`` on the 8-device CPU mesh."""
-        from jax.sharding import PartitionSpec as P
-
-        def local(st, ac):
-            return self.step_batch(st, ac, validate=validate, interpret=interpret)
-
-        return jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis)),
-            out_specs=P(axis),
-            check_vma=False,
-        )(states, actions)
 
     # ------------------------------------------------------------------
     # Observation (NN input planes)
     # ------------------------------------------------------------------
 
     def observe(self, state: EnvState) -> jax.Array:
-        """NN input planes ``float32[N, N, C]`` (NHWC, TPU-native layout).
+        """NN input planes ``float32[N, N, C]`` (NHWC layout).
 
         Successor of the reference's ``board_to_matrix`` sketch
         (``game/main.rs:55-83``), fixing its side-blind encoding: attacker,

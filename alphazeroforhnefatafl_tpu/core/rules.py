@@ -1,6 +1,6 @@
 """Declarative tafl rule configuration.
 
-TPU-native re-design of the reference's rules model
+Array-friendly re-design of the reference's rules model
 (``/root/reference/game/rules.rs:6-117``, ``game/pieces.rs:13-273``) and rule
 presets (``game/preset.rs:12-134``). Rulesets are frozen, hashable dataclasses:
 a :class:`Ruleset` is closed over at JAX trace time, so every ruleset

@@ -2,9 +2,9 @@
 
 The reference is single-process (SURVEY.md §2). Multi-host scaling here
 follows the standard JAX recipe: every host runs the same program,
-``jax.distributed.initialize`` forms the process group (over DCN), and all
-arrays live on a global mesh spanning every chip — collectives ride ICI
-within a slice and DCN across slices.
+``jax.distributed.initialize`` forms the process group, and all arrays live
+on a global mesh spanning every card — XLA hands the collectives to NCCL,
+which rides NVLink within a host and the network between hosts.
 
 For the AlphaZero loop the multi-host layout is:
 
@@ -19,8 +19,9 @@ For the AlphaZero loop the multi-host layout is:
   global buffer).
 
 Without a real cluster this module is exercised via
-``XLA_FLAGS=--xla_force_host_platform_device_count=N`` single-process tests
-and the driver's ``dryrun_multichip``.
+``XLA_FLAGS=--xla_force_host_platform_device_count=N`` single-process tests,
+``__graft_entry__.dryrun_multichip`` and the two-process CPU group of
+``tests/test_multiprocess.py``.
 """
 
 from __future__ import annotations

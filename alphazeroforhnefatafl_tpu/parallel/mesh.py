@@ -2,9 +2,11 @@
 
 The reference has no distributed runtime of any kind (SURVEY.md §2:
 "Parallelism & communication components: NONE"); this module is the new L0
-layer. Scaling follows the standard TPU recipe: build a
+layer. Scaling follows the standard JAX recipe: build a
 ``jax.sharding.Mesh``, annotate array shardings with ``NamedSharding`` /
-``PartitionSpec``, and let XLA place collectives on ICI.
+``PartitionSpec``, and let XLA place the collectives, which it hands to
+NCCL on GPUs. The cards of one host are joined all to all by NVLink (no
+torus), so a 1-D ``dp`` mesh follows the algorithm alone.
 
 For this workload the natural axes are:
 
@@ -32,9 +34,9 @@ def make_mesh(
     """Create a mesh over the available devices.
 
     Defaults to a 1-D ``dp`` mesh over all devices. Pass e.g.
-    ``axis_sizes=(hosts, chips)`` with ``axis_names=("dp_outer", "dp")`` for
-    a 2-D layout that keeps gradient reductions on ICI within a host before
-    crossing DCN.
+    ``axis_sizes=(hosts, cards)`` with ``axis_names=("dp_outer", "dp")`` for
+    a 2-D layout that keeps gradient reductions on NVLink within a host
+    before crossing the network between hosts.
     """
     devices = list(devices if devices is not None else jax.devices())
     if axis_sizes is None:

@@ -206,7 +206,6 @@ def _shard_pair_evaluate(evaluate: Callable, axis: str, B: int, B_local: int):
 def _match_move_fn(env, evaluate, mcts_config, B, sharding, dispatch):
     from jax.sharding import PartitionSpec as P
 
-    ki = bool(dispatch.interpret) if dispatch is not None else False
     if dispatch is not None:
         axis = dispatch.axis
         B_local = B // dispatch.mesh.size
@@ -214,10 +213,10 @@ def _match_move_fn(env, evaluate, mcts_config, B, sharding, dispatch):
     else:
         B_local = B
         pair_ev = _pair_evaluate(evaluate)
-    mcts = MCTS(env, pair_ev, mcts_config, kernel_interpret=ki)
+    mcts = MCTS(env, pair_ev, mcts_config)
 
     def move_local(stacked, i0, states, rng):
-        legal = env.legal_mask_many(states, interpret=ki)
+        legal = env.legal_mask_many(states)
         result = mcts.search((stacked, i0), states, legal, rng, add_noise=False)
         if mcts_config.root_selection == "gumbel":
             actions = result.best_action
@@ -225,7 +224,7 @@ def _match_move_fn(env, evaluate, mcts_config, B, sharding, dispatch):
             actions = select_actions(
                 result.action_probs, legal, jnp.zeros((B_local,)), rng
             )
-        new_states, _ = env.step_many(states, actions, interpret=ki)
+        new_states, _ = env.step_many(states, actions)
         return new_states, result.prior_fallback_rate
 
     if dispatch is not None:
@@ -385,8 +384,8 @@ def play_match(
 
     ``sharding``: optional ``NamedSharding`` to spread the game batch over a
     ``dp`` mesh (params should be replicated over the same mesh).
-    ``dispatch``: kernel dispatch under that mesh — ``"auto"`` (shard_map on
-    a >1-device TPU mesh), ``None``, or an explicit ``KernelDispatch``.
+    ``dispatch``: move dispatch under that mesh — ``"auto"`` (shard_map on
+    a >1-device mesh), ``None``, or an explicit ``KernelDispatch``.
     """
     rng = jax.random.PRNGKey(0) if rng is None else rng
     B = num_games

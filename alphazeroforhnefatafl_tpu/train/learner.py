@@ -9,8 +9,8 @@ visit-count policy targets and negamax values):
 
 Data parallelism is expressed with ``jax.sharding``: the batch is sharded
 over the ``dp`` mesh axis, params are replicated, and XLA inserts the psum
-gradient all-reduce — the TPU-native equivalent of the NCCL all-reduce the
-reference never had.
+gradient all-reduce, which runs as an NCCL all-reduce across GPUs — the
+distributed learner the reference never had.
 """
 
 from __future__ import annotations
@@ -20,16 +20,19 @@ from typing import Any, Dict, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass
 
 
-class TrainState(struct.PyTreeNode):
+@pytree_dataclass
+class TrainState:
     params: Any
     opt_state: Any
     step: jax.Array  # int32
 
 
-class Batch(struct.PyTreeNode):
+@pytree_dataclass
+class Batch:
     """One training batch of self-play positions."""
 
     obs: jax.Array  # f32[B, N, N, C]

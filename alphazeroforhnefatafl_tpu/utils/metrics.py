@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is one error log line
 (``src/mcts.py:96``); this supplies the per-iteration scalar logging the
-TPU build needs (games/s, sims/s, loss terms, arena scores), emitted as
+training loop needs (games/s, sims/s, loss terms, arena scores), emitted as
 JSON lines for easy scraping plus human-readable console summaries.
 """
 

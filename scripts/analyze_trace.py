@@ -1,11 +1,11 @@
 """Summarize a jax.profiler perfetto trace: device time by HLO op category.
 
 Pairs with scripts/profile_wave.py (which writes perfetto_trace.json.gz
-under <trace-dir>/plugins/perfetto/). Groups the TPU track's complete
+under <trace-dir>/plugins/profile/). Groups the GPU tracks' complete
 events by a coarse op-family key so the wave cost attribution is one
 table instead of a TensorBoard session.
 
-    python scripts/analyze_trace.py /tmp/tafl_trace [--top 40]
+    python scripts/analyze_trace.py traces/wave [--top 40]
 """
 
 import argparse
@@ -32,8 +32,8 @@ def family(name: str) -> str:
     n = name.lower()
     for pat, fam in (
         (r"fusion", "fusion"),
-        (r"custom-call|mosaic|tpu_custom_call", "pallas-kernel"),
-        (r"convolution|conv", "conv"),
+        (r"custom-call|triton", "custom-kernel"),
+        (r"convolution|conv|fprop|cudnn", "conv"),
         (r"\bdot\b|dot_general|matmul|gemm", "dot"),
         (r"scatter", "scatter"),
         (r"gather", "gather"),
@@ -57,7 +57,7 @@ def main():
     ap.add_argument("--top", type=int, default=40)
     ap.add_argument(
         "--track-regex",
-        default="TPU|/device:|XLA Op|Steps",
+        default="/device:GPU|Stream",
         help="process/thread name filter for device tracks",
     )
     a = ap.parse_args()

@@ -111,21 +111,27 @@ def test_initialize_distributed_single_process():
 
 def test_env_value_identity():
     """Two make_env(preset) instances are EQUAL and hash alike, so every
-    lru_cache keyed on the env (fused step kernel fn, arena move-fn cache)
-    hits across instances instead of re-tracing per construction."""
+    lru_cache keyed on the env (the arena move-fn cache) hits across
+    instances instead of re-tracing per construction."""
     from alphazeroforhnefatafl_tpu.core.env import TaflEnv, make_env
     from alphazeroforhnefatafl_tpu.core.rules import PRESETS
-    from alphazeroforhnefatafl_tpu.ops.step_kernel import _make_step_fn
+    from alphazeroforhnefatafl_tpu.search.mcts import MCTSConfig
+    from alphazeroforhnefatafl_tpu.train.arena import _match_move_fn
 
     rules, board = PRESETS["brandubh"]
     a, b = TaflEnv(rules, board), TaflEnv(rules, board)
     assert a is not b and a == b and hash(a) == hash(b)
     assert a == make_env("brandubh") and a != make_env("copenhagen")
-    before = _make_step_fn.cache_info().currsize
-    _make_step_fn(a, True)
-    _make_step_fn(b, True)
-    info = _make_step_fn.cache_info()
-    assert info.currsize <= before + 1 and info.hits >= 1
+
+    def evaluate(params, obs):
+        return obs, obs
+
+    cfg = MCTSConfig(num_simulations=2, max_children=4)
+    before = _match_move_fn.cache_info()
+    _match_move_fn(a, evaluate, cfg, 2, None, None)
+    _match_move_fn(b, evaluate, cfg, 2, None, None)
+    info = _match_move_fn.cache_info()
+    assert info.currsize <= before.currsize + 1 and info.hits >= before.hits + 1
 
 
 def test_to_tile_traceable_and_consistent():

@@ -1,4 +1,4 @@
-"""Seeded determinism (SURVEY.md §5, race-detection row): the TPU build's
+"""Seeded determinism (SURVEY.md §5, race-detection row): this build's
 answer to the reference's absence of concurrency hazards is determinism by
 construction — jit purity plus threaded PRNG keys. This pins it: the same
 seed must reproduce the identical self-play trajectory bit-for-bit."""

@@ -1,14 +1,12 @@
-"""Production multi-chip move dispatch (VERDICT r2 #1).
+"""Production multi-device move dispatch.
 
 On a >1-device dp mesh, plain jit all-gathers the game batch around the
-fused pallas kernels (no GSPMD partition rule) AND around the search's
-top_k/scatter-add families (GSPMD refuses to batch-partition them) —
-measured: seven all-gathers per actor move, some ``f32[B, A]``-sized. The
+search's top_k/scatter-add families (GSPMD refuses to batch-partition them)
+— measured: seven all-gathers per actor move, some ``f32[B, A]``-sized. The
 production actor/arena therefore run the WHOLE move function inside one
 ``shard_map`` over the dp axis (``KernelDispatch``). These tests run that
-exact production path on the 8-virtual-device CPU mesh — with
-``interpret=True`` forcing the TPU kernel program structure per shard — and
-assert the lowered move program contains NO all-gather at all.
+exact production path on the 8-virtual-device CPU mesh and assert the
+lowered move program contains NO all-gather at all.
 """
 
 import numpy as np
@@ -62,14 +60,14 @@ def test_auto_dispatch_rule():
 
 
 def test_actor_move_has_no_allgather_under_dispatch():
-    """Lower the production actor move fn (whole-move shard_map, kernel path
-    in interpret mode) on the 8-device mesh: the compiled program must
+    """Lower the production actor move fn (whole-move shard_map) on the
+    8-device mesh: the compiled program must
     contain no all-gather — the game batch stays data-parallel through the
     root mask, every search wave's step, and the root step."""
     env = make_env("brandubh")
     mesh = make_mesh(axis_sizes=(8,), axis_names=("dp",))
     sh = batch_sharding(mesh)
-    actor = _make_actor(env, sh, KernelDispatch(mesh, interpret=True))
+    actor = _make_actor(env, sh, KernelDispatch(mesh))
     states = actor._reset_batch()
     temps = jnp.zeros((8,))
     rng = jax.random.PRNGKey(0)
@@ -92,7 +90,7 @@ def test_actor_move_dispatch_matches_plain_path():
     mesh = make_mesh(axis_sizes=(8,), axis_names=("dp",))
     sh = batch_sharding(mesh)
     a_disp = _make_actor(
-        env, sh, KernelDispatch(mesh, interpret=True), dirichlet_eps=0.0
+        env, sh, KernelDispatch(mesh), dirichlet_eps=0.0
     )
     a_plain = _make_actor(env, sh, None, dirichlet_eps=0.0)
     states = a_plain._reset_batch()
@@ -114,7 +112,7 @@ def test_actor_play_full_games_under_dispatch():
     env = make_env("brandubh")
     mesh = make_mesh(axis_sizes=(8,), axis_names=("dp",))
     sh = batch_sharding(mesh)
-    actor = _make_actor(env, sh, KernelDispatch(mesh, interpret=True))
+    actor = _make_actor(env, sh, KernelDispatch(mesh))
     stats = actor.play(None, None, jax.random.PRNGKey(1), num_games=8)
     assert stats.games >= 8
     assert stats.positions > 0
@@ -132,7 +130,7 @@ def test_arena_match_no_allgather_under_dispatch():
     cfg = MCTSConfig(num_simulations=4, max_children=8, max_depth=8)
     kwargs = dict(
         num_games=8, max_game_len=10, rng=jax.random.PRNGKey(2), sharding=sh,
-        dispatch=KernelDispatch(mesh, interpret=True),
+        dispatch=KernelDispatch(mesh),
     )
     res = play_match(env, evaluate, params, params2, cfg, **kwargs)
     assert res.games == 8
@@ -143,7 +141,7 @@ def test_arena_match_no_allgather_under_dispatch():
     from alphazeroforhnefatafl_tpu.train.arena import _match_move_fn
 
     move = _match_move_fn(
-        env, evaluate, cfg, 8, sh, KernelDispatch(mesh, interpret=True)
+        env, evaluate, cfg, 8, sh, KernelDispatch(mesh)
     )
     states = jax.tree_util.tree_map(
         lambda x: jax.device_put(x, sh), env.reset_batch(8)
@@ -203,7 +201,7 @@ def test_multi_leaf_under_dispatch_no_allgather():
     mesh = make_mesh(axis_sizes=(8,), axis_names=("dp",))
     sh = batch_sharding(mesh)
     a_disp = _make_actor(
-        env, sh, KernelDispatch(mesh, interpret=True),
+        env, sh, KernelDispatch(mesh),
         dirichlet_eps=0.0, leaves_per_wave=2,
     )
     states = a_disp._reset_batch()

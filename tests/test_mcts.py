@@ -462,7 +462,6 @@ def test_config_mode_validation():
     ev = make_fake_evaluate(env)
     for bad in (
         dict(node_read="gahter"),
-        dict(topk="fast"),
         dict(backup="sparse"),
         dict(root_selection="ucb"),
     ):
@@ -470,9 +469,8 @@ def test_config_mode_validation():
             MCTS(env, ev, MCTSConfig(num_simulations=4, **bad))
     # All documented values construct.
     for good in (
-        dict(node_read="dot", topk="exact", backup="scatter"),
-        dict(node_read="gather", topk="approx", backup="dense",
-             root_selection="gumbel"),
+        dict(node_read="dot", backup="scatter"),
+        dict(node_read="gather", backup="dense", root_selection="gumbel"),
         dict(),
     ):
         MCTS(env, ev, MCTSConfig(num_simulations=4, **good))
@@ -595,6 +593,31 @@ def test_multi_leaf_waves(L):
     np.testing.assert_allclose(
         np.asarray(res.action_probs), np.asarray(chunked.action_probs),
         rtol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_search_in_chunks_chunk_below_wave(chunk):
+    """A chunk smaller than (or not a multiple of) ``leaves_per_wave`` is
+    raised to whole waves instead of counting down to 0 and dividing by
+    zero; the result still equals the monolithic search."""
+    env = TaflEnv(BRANDUBH, BOARDS.BRANDUBH)
+    state_b = jax.tree_util.tree_map(lambda x: jnp.stack([x, x]), env.reset())
+    legal_b = jax.vmap(env.legal_mask)(state_b)
+    cfg = MCTSConfig(
+        num_simulations=8, max_children=8, dirichlet_eps=0.0, max_depth=8,
+        leaves_per_wave=4,
+    )
+    mcts = MCTS(env, make_fake_evaluate(env), cfg)
+    full = jax.jit(lambda s, l, r: mcts.search(None, s, l, r, add_noise=False))(
+        state_b, legal_b, jax.random.PRNGKey(0)
+    )
+    chunked = mcts.search_in_chunks(
+        None, state_b, legal_b, jax.random.PRNGKey(0), add_noise=False,
+        chunk=chunk,
+    )
+    np.testing.assert_array_equal(
+        np.asarray(full.tree.child_N), np.asarray(chunked.tree.child_N)
     )
 
 

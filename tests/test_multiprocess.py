@@ -4,7 +4,7 @@ Spawns two worker processes that form a process group through
 ``parallel.launch.initialize_distributed`` (the multi-host entry point of
 the framework) and run a global psum across both hosts' devices — the
 communication pattern of the DP learner's gradient all-reduce, exercised
-without TPU hardware (SURVEY.md §4: distributed testing designed fresh;
+without accelerators (SURVEY.md §4: distributed testing designed fresh;
 the reference has no multi-process code at all).
 """
 

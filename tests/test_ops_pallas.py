@@ -1,10 +1,6 @@
-"""Differential tests for the pallas legal-mask kernel.
-
-On the CPU suite the kernel runs in interpret mode; under
-``TAFL_TEST_PLATFORM=tpu`` the same tests also run the COMPILED Mosaic
-kernel (tests/conftest.py ``kernel_interpret_modes``). Truth is the
-pure-JAX ray scan, itself differentially tested against the oracle.
-"""
+"""The batched root legal mask, ``TaflEnv.legal_mask_many`` (``vmap`` of the
+ray scan), against the oracle's legal plays on random boards: every preset,
+the start positions, and the reference's 15x15 and 21x21 board sizes."""
 
 import numpy as np
 import pytest
@@ -12,10 +8,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from alphazeroforhnefatafl_tpu.core.env import make_env
-from alphazeroforhnefatafl_tpu.core.rules import CELL_ATT, CELL_DEF, CELL_KING, EMPTY
-from alphazeroforhnefatafl_tpu.ops.legal_mask import batched_legal_mask
-from tests.conftest import kernel_interpret_modes
+from alphazeroforhnefatafl_tpu.core import fen
+from alphazeroforhnefatafl_tpu.core.env import TaflEnv, make_env
+from alphazeroforhnefatafl_tpu.core.oracle import GameLogic, GameState
+from alphazeroforhnefatafl_tpu.core.rules import (
+    CELL_ATT,
+    CELL_DEF,
+    CELL_KING,
+    EMPTY,
+    PRESETS,
+    Side,
+)
+from tests.test_env_differential import oracle_legal_action_mask
 
 
 def random_boards(rng, n, B):
@@ -34,28 +38,48 @@ def random_boards(rng, n, B):
     return boards
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-@pytest.mark.parametrize("preset", ["copenhagen", "brandubh", "tablut", "magpie"])
-def test_pallas_mask_matches_jax(preset, interpret):
-    env = make_env(preset)
-    n = env.n
-    rng = np.random.RandomState(42)
-    B = 7  # deliberately not a multiple of the 128-lane block
-    boards = random_boards(rng, n, B)
-    sides = rng.randint(0, 2, size=B).astype(np.int32)
-
-    ref = jax.vmap(env.legal_mask_for_side)(jnp.asarray(boards), jnp.asarray(sides))
-    got = batched_legal_mask(
-        env, jnp.asarray(boards), jnp.asarray(sides), interpret=interpret
+def assert_masks_match_oracle(env, rules, boards, sides):
+    states = env.reset_batch(len(boards)).replace(
+        board=jnp.asarray(boards, jnp.int8), side_to_play=jnp.asarray(sides, jnp.int32)
     )
-    assert np.array_equal(np.asarray(ref), np.asarray(got))
+    got = np.asarray(jax.jit(env.legal_mask_many)(states))
+    logic = GameLogic(rules, env.n)
+    for b, (board, side) in enumerate(zip(boards, sides)):
+        ostate = GameState.from_fen(fen.board_to_fen(board), Side(int(side)))
+        want = oracle_legal_action_mask(logic, ostate)
+        diff = np.nonzero(want != got[b])[0]
+        assert not diff.size, (
+            f"board {b} side {int(side)}: actions {diff[:10]} differ on\n"
+            f"{fen.board_to_display_str(board)}"
+        )
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-def test_pallas_mask_start_positions(interpret):
+@pytest.mark.parametrize("preset", ["copenhagen", "brandubh", "tablut", "magpie"])
+def test_batched_legal_mask_matches_oracle(preset):
+    env = make_env(preset)
+    rng = np.random.RandomState(42)
+    B = 7
+    boards = random_boards(rng, env.n, B)
+    sides = rng.randint(0, 2, size=B).astype(np.int32)
+    assert_masks_match_oracle(env, PRESETS[preset][0], boards, sides)
+
+
+def test_batched_legal_mask_start_positions():
+    rules, start = PRESETS["copenhagen"]
     env = make_env("copenhagen")
     B = 5
-    state = env.reset_batch(B)
-    ref = jax.vmap(env.legal_mask_for_side)(state.board, state.side_to_play)
-    got = batched_legal_mask(env, state.board, state.side_to_play, interpret=interpret)
-    assert np.array_equal(np.asarray(ref), np.asarray(got))
+    boards = np.stack([fen.board_from_fen(start)] * B)
+    sides = np.asarray([0, 1, 0, 1, 0], np.int32)
+    assert_masks_match_oracle(env, rules, boards, sides)
+
+
+@pytest.mark.parametrize("n", [15, 21])
+def test_batched_legal_mask_large_boards(n):
+    """The reference's Large/Huge board sizes (game/game/mod.rs:119-125)."""
+    rules = PRESETS["copenhagen"][0]
+    env = TaflEnv(rules, fen.board_to_fen(np.zeros((n, n), np.int8)))
+    rng = np.random.RandomState(n)
+    B = 3
+    boards = random_boards(rng, n, B)
+    sides = rng.randint(0, 2, size=B).astype(np.int32)
+    assert_masks_match_oracle(env, rules, boards, sides)

@@ -108,7 +108,7 @@ def _sharded_actor(scan_moves, batch=8, max_len=8):
             temp_threshold=4, scan_moves=scan_moves,
         ),
         sharding=sh,
-        dispatch=KernelDispatch(mesh, interpret=True),
+        dispatch=KernelDispatch(mesh),
     )
     return env, actor
 

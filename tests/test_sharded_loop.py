@@ -198,20 +198,24 @@ def test_gumbel_loop_iteration(tmp_path):
     assert len(leaf.sharding.device_set) == 8
 
 
-def test_step_sharded_kernel_matches_vmap_step():
-    """The fused step kernel under shard_map on the 8-device mesh must match
-    vmap(step) field-for-field (multi-chip kernel path, pure DP of games)."""
+def test_step_many_dp_sharded_matches_unsharded():
+    """``step_many`` under a jit whose game batch is dp-sharded over the
+    8-device mesh must match the unsharded step field-for-field and keep
+    the batch sharded (pure DP of games)."""
+    from alphazeroforhnefatafl_tpu.parallel.mesh import batch_sharding, shard_batch
+
     env = make_env("brandubh")
     mesh = make_mesh(axis_sizes=(8,), axis_names=("dp",))
+    sh = batch_sharding(mesh)
     B = 16
     s = env.reset_batch(B)
     m = np.asarray(jax.vmap(env.legal_mask)(s))
     a = jnp.asarray(
         [int(np.nonzero(m[b])[0][b % 3]) for b in range(B)], jnp.int32
     )
-    ns, info = jax.jit(
-        lambda st, ac: env.step_sharded(mesh, st, ac, interpret=True)
-    )(s, a)
+    ns, info = jax.jit(env.step_many, out_shardings=sh)(
+        shard_batch(mesh, s), shard_batch(mesh, a)
+    )
     ns2, info2 = jax.vmap(lambda ss, aa: env.step(ss, aa, validate=False))(s, a)
     for f in (
         "board", "side_to_play", "reps", "mid_pair", "recent_plays",
@@ -227,3 +231,4 @@ def test_step_sharded_kernel_matches_vmap_step():
             np.asarray(getattr(info, f)), np.asarray(getattr(info2, f))
         ), f
     assert len(ns.board.sharding.device_set) == 8
+    assert ns.board.sharding.shard_shape(ns.board.shape)[0] == B // 8

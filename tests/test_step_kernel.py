@@ -1,10 +1,11 @@
-"""Differential tests for the fused pallas step kernel.
+"""The batched env step — ``jit(vmap(step))``, what ``TaflEnv.step_many``
+runs — against the Python oracle, game by game.
 
-``TaflEnv.step_batch`` (kernel array phase + shared finisher) must match
-``vmap(TaflEnv.step)`` field-for-field on random playouts. On the CPU suite
-the kernel runs in interpret mode; under ``TAFL_TEST_PLATFORM=tpu`` every
-test here also runs the COMPILED Mosaic kernel (tests/conftest.py
-``kernel_interpret_modes``), so lowering regressions fail the suite.
+Every case loads the same positions into both engines (the oracle from the
+FEN of the env's board) and compares boards, captures, results and reasons
+and the next player's legal mask. Dense random boards fire captures,
+shieldwalls and flood-fill outcomes far more often than playouts from the
+start position, so they stay beside the fixtures.
 """
 
 import numpy as np
@@ -13,185 +14,188 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from alphazeroforhnefatafl_tpu.core.env import make_env
-from tests.conftest import kernel_interpret_modes
-
-STATE_FIELDS = [
-    "board",
-    "side_to_play",
-    "reps",
-    "mid_pair",
-    "recent_plays",
-    "rep_first_i",
-    "plays_since_capture",
-    "turn",
-    "terminated",
-    "result",
-    "reason",
-]
-INFO_FIELDS = [
-    "captures",
-    "n_captures",
-    "terminated",
-    "result",
-    "reason",
-    "reward_mover",
-    "legal_mask",
-    "invalid",
-]
+from alphazeroforhnefatafl_tpu.core import actions as A
+from alphazeroforhnefatafl_tpu.core import fen
+from alphazeroforhnefatafl_tpu.core.env import (
+    DRAW,
+    ONGOING,
+    R_DRAW_NO_PLAYS,
+    R_DRAW_REPETITION,
+    TaflEnv,
+    make_env,
+)
+from alphazeroforhnefatafl_tpu.core.oracle import GameLogic, GameState, Play
+from alphazeroforhnefatafl_tpu.core.rules import PRESETS, Side
+from tests.test_env_differential import oracle_legal_action_mask, oracle_result
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-@pytest.mark.parametrize("preset", ["brandubh", "copenhagen", "tablut", "magpie"])
-def test_step_batch_matches_vmap_step(preset, interpret):
-    env = make_env(preset)
-    B, steps = 6, 24
-    rng = np.random.RandomState(hash(preset) % (2**31))
-    states = env.reset_batch(B)
-    vstep = jax.jit(
+def batched_step(env):
+    return jax.jit(
         lambda s, a: jax.vmap(lambda ss, aa: env.step(ss, aa, validate=False))(s, a)
     )
-    kstep = jax.jit(lambda s, a: env.step_batch(s, a, interpret=interpret))
-    mask_fn = jax.jit(jax.vmap(env.legal_mask))
 
+
+def oracle_state(env, states, b) -> GameState:
+    """Game ``b`` of a batch as an oracle state loaded by FEN (repetition
+    history starts empty, as for every position loaded here)."""
+    side = Side(int(states.side_to_play[b]))
+    return GameState.from_fen(fen.board_to_fen(np.asarray(states.board[b])), side)
+
+
+def assert_step_matches(logic, n, ostate, action, new_states, info, b, ctx):
+    """Apply ``action`` to ``ostate`` on the oracle and compare game ``b``."""
+    src, dst = A.decode_to_tiles(n, int(action))
+    new_o, ocaps, _ = logic.do_valid_play(Play.from_tiles(src, dst), ostate)
+    ctx = f"{ctx} game {b} play {fen.play_to_str(src, dst)}"
+    assert not bool(info.invalid[b]), ctx
+    ecaps = {tuple(t) for t in np.argwhere(np.asarray(info.captures[b]))}
+    assert ecaps == ocaps, f"{ctx}: captures oracle={ocaps} env={ecaps}"
+    assert np.array_equal(np.asarray(new_states.board[b]), new_o.board), ctx
+    assert int(new_states.reps[b, 0]) == new_o.repetitions.attacker_reps, ctx
+    assert int(new_states.reps[b, 1]) == new_o.repetitions.defender_reps, ctx
+    ores, oreason = oracle_result(new_o)
+    assert int(new_states.result[b]) == ores, ctx
+    if ores != ONGOING:
+        assert bool(new_states.terminated[b]), ctx
+        if ores == DRAW:
+            expect = {0: R_DRAW_REPETITION, 1: R_DRAW_NO_PLAYS}[int(oreason)]
+        else:
+            expect = int(oreason)
+        assert int(new_states.reason[b]) == expect, ctx
+    assert np.array_equal(
+        np.asarray(info.legal_mask[b]), oracle_legal_action_mask(logic, new_o)
+    ), f"{ctx}: next legal mask"
+    return new_o
+
+
+def random_legal_actions(rng, masks):
+    return jnp.asarray(
+        [int(rng.choice(np.nonzero(m)[0])) if m.any() else 0 for m in masks],
+        jnp.int32,
+    )
+
+
+@pytest.mark.parametrize("preset", ["brandubh", "copenhagen", "tablut", "magpie"])
+def test_batched_step_matches_oracle(preset):
+    """Random playouts of a batch of games, every game replayed on the
+    oracle move by move (finished games restart in both engines)."""
+    rules, start = PRESETS[preset]
+    env = make_env(preset)
+    n = env.n
+    logic = GameLogic(rules, n)
+    B, steps = 6, 24
+    rng = np.random.RandomState(hash(preset) % (2**31))
+    step = batched_step(env)
+    states = env.reset_batch(B)
+    games = [GameState.from_fen(start, rules.starting_side) for _ in range(B)]
     for t in range(steps):
-        m = np.asarray(mask_fn(states))
-        acts = jnp.asarray(
-            [
-                int(rng.choice(np.nonzero(m[b])[0])) if m[b].any() else 0
-                for b in range(B)
-            ],
-            jnp.int32,
-        )
-        s_ref, i_ref = vstep(states, acts)
-        s_got, i_got = kstep(states, acts)
-        for name in STATE_FIELDS:
-            a, b = np.asarray(getattr(s_ref, name)), np.asarray(getattr(s_got, name))
-            assert np.array_equal(a, b), f"{preset} step {t} state.{name}"
-        for name in INFO_FIELDS:
-            a, b = np.asarray(getattr(i_ref, name)), np.asarray(getattr(i_got, name))
-            assert np.array_equal(a, b), f"{preset} step {t} info.{name}"
-        states = s_ref
+        masks = np.stack([oracle_legal_action_mask(logic, g) for g in games])
+        acts = random_legal_actions(rng, masks)
+        states, info = step(states, acts)
+        for b in range(B):
+            games[b] = assert_step_matches(
+                logic, n, games[b], acts[b], states, info, b, f"{preset} step {t}"
+            )
         done = np.asarray(states.terminated)
         if done.any():
             fresh = env.reset_batch(B)
             d = jnp.asarray(done)
             states = jax.tree_util.tree_map(
-                lambda f, c: jnp.where(
-                    d.reshape((-1,) + (1,) * (c.ndim - 1)), f, c
-                ),
+                lambda f, c: jnp.where(d.reshape((-1,) + (1,) * (c.ndim - 1)), f, c),
                 fresh,
                 states,
             )
+            for b in np.nonzero(done)[0]:
+                games[b] = GameState.from_fen(start, rules.starting_side)
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-def test_step_batch_shieldwall_fixture(interpret):
-    """The corner-closing shieldwall fixture through the fused kernel
-    (game/game/logic.rs:1108-1123)."""
-    from alphazeroforhnefatafl_tpu.core import actions as A
-    from alphazeroforhnefatafl_tpu.core.env import TaflEnv
+def test_batched_step_shieldwall_fixture():
+    """The corner-closing shieldwall fixture (game/game/logic.rs:1108-1123)
+    through the batched step: the oracle and the fixture's expected
+    captures agree with it."""
     from alphazeroforhnefatafl_tpu.core.rules import COPENHAGEN
 
-    env = TaflEnv(COPENHAGEN, "9/9/9/9/6t2/7tT/7tT/7tT/9")
-    state = env.reset()  # attacker to move
-    states = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (1,) + x.shape), state)
+    board_fen = "9/9/9/9/6t2/7tT/7tT/7tT/9"
+    env = TaflEnv(COPENHAGEN, board_fen)
+    states = env.reset_batch(1)  # attacker to move
     action = jnp.asarray([A.encode_from_tiles(9, (4, 6), (4, 8))], jnp.int32)
-    _, info = jax.jit(lambda s, a: env.step_batch(s, a, interpret=interpret))(states, action)
+    new_states, info = batched_step(env)(states, action)
+    logic = GameLogic(COPENHAGEN, 9)
+    assert_step_matches(
+        logic, 9, oracle_state(env, states, 0), action[0], new_states, info, 0,
+        "shieldwall",
+    )
     caps = {tuple(t) for t in np.argwhere(np.asarray(info.captures[0]))}
     assert caps == {(5, 8), (6, 8), (7, 8)}
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-def test_step_batch_exit_fort_fixture(interpret):
+def test_batched_step_exit_fort_fixture():
     """A defender move completing a bulge exit fort (logic.rs:1215-1233)
-    through the fused kernel must end the game with an ExitFort win."""
-    from alphazeroforhnefatafl_tpu.core import actions as A
-    from alphazeroforhnefatafl_tpu.core.env import TaflEnv, WIN_DEFENDER
+    must end the game with an ExitFort win, as on the oracle."""
+    from alphazeroforhnefatafl_tpu.core.env import WIN_DEFENDER
     from alphazeroforhnefatafl_tpu.core.rules import COPENHAGEN, WinReason
 
     env = TaflEnv(COPENHAGEN, "4t4/1t7/9/9/5T3/6TTT/5T2K/6TTT/9")
-    state = env.reset().replace(side_to_play=jnp.int32(1))
-    states = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (1,) + x.shape), state)
+    states = env.reset_batch(1).replace(side_to_play=jnp.ones((1,), jnp.int32))
     action = jnp.asarray([A.encode_from_tiles(9, (4, 5), (5, 5))], jnp.int32)
-    ns, info = jax.jit(lambda s, a: env.step_batch(s, a, interpret=interpret))(states, action)
-    assert not bool(info.invalid[0])
+    ns, info = batched_step(env)(states, action)
+    logic = GameLogic(COPENHAGEN, 9)
+    assert_step_matches(
+        logic, 9, oracle_state(env, states, 0), action[0], ns, info, 0, "exit fort"
+    )
     assert int(ns.result[0]) == WIN_DEFENDER
     assert int(ns.reason[0]) == int(WinReason.EXIT_FORT)
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-def test_step_batch_dense_boards(interpret):
-    """Dense random boards fire captures/shieldwalls/flood-fill outcomes far
-    more often than playouts from the start position; the kernel must match
-    vmap(step) on them field-for-field."""
+def test_batched_step_dense_boards():
+    """Dense random boards, a batch at a time, each game against the oracle
+    loaded from its FEN."""
     from tests.test_env_golden import random_dense_board
 
     env = make_env("copenhagen")
     n = env.n
+    logic = GameLogic(PRESETS["copenhagen"][0], n)
     rng = np.random.RandomState(7)
     B = 8
-    vstep = jax.jit(
-        lambda s, a: jax.vmap(lambda ss, aa: env.step(ss, aa, validate=False))(s, a)
-    )
-    kstep = jax.jit(lambda s, a: env.step_batch(s, a, interpret=interpret))
-    mask_fn = jax.jit(jax.vmap(env.legal_mask))
-
+    step = batched_step(env)
     for round_i in range(4):
         boards = np.stack([random_dense_board(rng, n) for _ in range(B)])
         side = rng.randint(0, 2)
-        base = env.reset_batch(B)
-        states = base.replace(
+        states = env.reset_batch(B).replace(
             board=jnp.asarray(boards, jnp.int8),
             side_to_play=jnp.full((B,), side, jnp.int32),
         )
-        m = np.asarray(mask_fn(states))
-        acts = jnp.asarray(
-            [
-                int(rng.choice(np.nonzero(m[b])[0])) if m[b].any() else 0
-                for b in range(B)
-            ],
-            jnp.int32,
-        )
-        s_ref, i_ref = vstep(states, acts)
-        s_got, i_got = kstep(states, acts)
-        for name in STATE_FIELDS:
-            a, b = np.asarray(getattr(s_ref, name)), np.asarray(getattr(s_got, name))
-            assert np.array_equal(a, b), f"round {round_i} state.{name}"
-        for name in INFO_FIELDS:
-            a, b = np.asarray(getattr(i_ref, name)), np.asarray(getattr(i_got, name))
-            assert np.array_equal(a, b), f"round {round_i} info.{name}"
+        games = [oracle_state(env, states, b) for b in range(B)]
+        masks = np.stack([oracle_legal_action_mask(logic, g) for g in games])
+        acts = random_legal_actions(rng, masks)
+        new_states, info = step(states, acts)
+        for b in range(B):
+            if masks[b].any():
+                assert_step_matches(
+                    logic, n, games[b], acts[b], new_states, info, b,
+                    f"round {round_i}",
+                )
 
 
-@pytest.mark.parametrize("interpret", kernel_interpret_modes())
-def test_step_batch_repetition_loss_fixture(interpret):
-    """The repetition-loss sequence (logic.rs:1405-1421) played entirely
-    through the fused kernel: the in-kernel ring/mid-pair tracker must call
-    the game at the exact same ply as the oracle (defender wins, attacker
-    repeated 3x)."""
-    from alphazeroforhnefatafl_tpu.core import fen as F
-    from alphazeroforhnefatafl_tpu.core import actions as A
-    from alphazeroforhnefatafl_tpu.core.env import WIN_DEFENDER, make_env
+def test_batched_step_repetition_loss_fixture():
+    """The repetition-loss sequence (logic.rs:1405-1421) played through the
+    batched step and the oracle side by side: the game ends at the same ply
+    (defender wins, attacker repeated 3x)."""
+    from alphazeroforhnefatafl_tpu.core.env import WIN_DEFENDER
     from alphazeroforhnefatafl_tpu.core.rules import WinReason
 
+    rules, start = PRESETS["brandubh"]
     env = make_env("brandubh")
-    state = env.reset_batch(1)
-    kstep = jax.jit(lambda s, a: env.step_batch(s, a, interpret=interpret))
-
-    def play(mv):
+    logic = GameLogic(rules, 7)
+    step = batched_step(env)
+    states = env.reset_batch(1)
+    game = GameState.from_fen(start, rules.starting_side)
+    moves = ["d6-f6", "d5-f5", "f6-d6", "f5-d5"] * 3 + ["d6-f6"]
+    for i, mv in enumerate(moves):
         src, dst = mv.split("-")
-        aid = A.encode_from_tiles(
-            7, F.tile_from_str(src), F.tile_from_str(dst)
-        )
-        return kstep(play.state, jnp.asarray([aid], jnp.int32))
-
-    play.state = state
-    moves = ["d6-f6", "d5-f5", "f6-d6", "f5-d5"] * 3
-    for mv in moves:
-        play.state, info = play(mv)
-        assert not bool(info.invalid[0]), mv
-        assert not bool(play.state.terminated[0]), mv
-    play.state, info = play("d6-f6")
-    assert bool(play.state.terminated[0])
-    assert int(play.state.result[0]) == WIN_DEFENDER
-    assert int(play.state.reason[0]) == int(WinReason.REPETITION)
+        aid = A.encode_from_tiles(7, fen.tile_from_str(src), fen.tile_from_str(dst))
+        states, info = step(states, jnp.asarray([aid], jnp.int32))
+        game = assert_step_matches(logic, 7, game, aid, states, info, 0, mv)
+        assert bool(states.terminated[0]) == (i == len(moves) - 1), mv
+    assert int(states.result[0]) == WIN_DEFENDER
+    assert int(states.reason[0]) == int(WinReason.REPETITION)
